@@ -1,11 +1,11 @@
 """Faithful NumPy re-implementation of the reference algorithms.
 
-Purpose (BASELINE.md TODO): the reference publishes no wall-clock numbers,
+Purpose: the reference publishes no wall-clock numbers,
 so this module reproduces its *algorithms and cost profile* — Python
 element loops for every operator evaluation and un-cached dense
 ``np.linalg.solve`` calls every step (4 per Stokes step) — to serve as
 
-1. the **golden oracle** for parity tests of the TPU framework, and
+1. the **golden oracle** for parity tests of the tpufem framework, and
 2. the **timing denominator** for the ≥100× speedup target.
 
 The math follows the canonical reference copies cited in SURVEY.md §2.3

@@ -1,10 +1,11 @@
-"""NS trusted-reference cross-check (VERDICT r4 next #4, accuracy half).
+"""NS trusted-reference cross-check (accuracy).
 
-The NS convergence ladder (converge_ns_r4.jsonl) is self-referential:
+The NS convergence ladder (``tpufem converge --study ns``) is
+self-referential:
 every rung is the same P1/P1 projection discretization.  This script
 checks the NS stepper against an INDEPENDENT trusted discretization —
 the transient P2/P1 Taylor–Hood stepper (LBB-stable, validated against
-dense factorization to 3e-13 in round 3) — on the same P1 mesh, same
+dense factorization to 3e-13) — on the same P1 mesh, same
 impulsive-start configuration (all-wall + inner-body no-slip, ν=1,
 dt=1e-4, 50 steps), exactly as PARITY §7 did for Stokes.  At this
 horizon |u| ~ 1e-5·|f| so the advection term (~|u|²/h) is six orders
@@ -23,7 +24,11 @@ Two force configurations:
   artifact, the quantitative form of the reference's README.md:19
   accuracy caveat for its NS configuration.
 
-Run from /root/repo (CPU, f64): python benchmarks/ns_th_xcheck_r5.py [n_side]
+Run from the repository root (CPU, f64):
+
+    python benchmarks/ns_th_xcheck_r5.py [n_side ...]
+
+One JSON row per line on standard output.
 """
 
 import json
@@ -146,10 +151,7 @@ def main():
     for n_side in (rungs[0], rungs[-1]):
         rows.append(run_pair(n_side, steps, dt, nu, const, "constant"))
         print(json.dumps(rows[-1]), flush=True)
-
-    with open("benchmarks/ns_th_xcheck_r5.jsonl", "w") as fh:
-        for r in rows:
-            fh.write(json.dumps(r) + "\n")
+    return rows
 
 
 if __name__ == "__main__":

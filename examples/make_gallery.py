@@ -2,7 +2,7 @@
 
 The reference repo ships `images/{Mesh,Poisson,Heat,Stokes_flow}.png` and
 `scripts/fluid_squirmer_dye.mp4`; this script reproduces the gallery from
-framework runs (CPU or TPU):
+framework runs on whatever device JAX finds:
 
     python examples/make_gallery.py [outdir]
 
@@ -21,13 +21,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main(outdir="examples/gallery", quick=False):
     import os
 
-    import jax
-
-    if jax.default_backend() not in ("tpu",):
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
     import tpufem
 
     tpufem.enable_x64()
@@ -107,7 +100,7 @@ def main(outdir="examples/gallery", quick=False):
 
 def xl_dye_movie(outdir="examples/gallery", n_side=640, n_circle=720,
                  steps=600, frame_interval=20, quick=False):
-    """The flagship movie (VERDICT r4 next #9): a semi-Lagrangian dye run
+    """The flagship movie: a semi-Lagrangian dye run
     at 410k nodes — 384× the reference's largest mesh — exported as an
     offline animation from :func:`viz.run_with_frames` snapshots, the
     decoupled form of ``scripts/good_visualization2.py:735-744`` (which
@@ -118,16 +111,11 @@ def xl_dye_movie(outdir="examples/gallery", n_side=640, n_circle=720,
     fallback is the declared mp4-equivalent here; on a machine with
     ffmpeg the same call writes the mp4.
 
-        python examples/make_gallery.py --xl          # 410k, TPU
-        python examples/make_gallery.py --xl-quick    # smoke size, CPU
+        python examples/make_gallery.py --xl          # 410k
+        python examples/make_gallery.py --xl-quick    # smoke size
     """
     import jax
 
-    if quick:  # smoke mode runs on CPU (tests/test_examples.py)
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
     jax.config.update("jax_enable_x64", True)
     import tpufem
     from tpufem import viz

@@ -1,7 +1,7 @@
-"""Physics-gate regression tests (VERDICT r3 #3).
+"""Physics-gate regression tests.
 
 The large-mesh bench gates must track the MEASURED divergence curves —
-a silent loosening (e.g. back to the round-3 blow-up-only 1.0) would let
+a silent loosening (e.g. back to a blow-up-only 1.0) would let
 fast noise publish as physics.  These tests pin the gate values and
 prove the gate actually fires on a corrupted field.
 """
@@ -67,8 +67,7 @@ def test_gate_fires_on_blowup(small_run):
 
 def test_poisson_heat_bench_runners_toy():
     """bench --large --poisson/--heat drivers end-to-end at toy size
-    (VERDICT r3 weak #6: bench-side regressions must be CI-catchable,
-    not hardware-only).  Gates included: residual, Dirichlet values,
+    (bench-side regressions must be CI-catchable, not hardware-only).  Gates included: residual, Dirichlet values,
     heat boundedness."""
     rp = bench_large.run_poisson_large(40, 48, precision="f64")
     assert rp["res_rel"] < 1e-6 and rp["bc_err_max"] < 1e-6

@@ -1,8 +1,7 @@
 """Convergence-study machinery (``tpufem/convergence.py``) + P2 refine.
 
-The full studies run on TPU/long CPU (committed artifacts in
-``benchmarks/converge_*.jsonl``); these tests validate the machinery at
-toy sizes and the P1→P2 refinement against the reference's own bought
+The full studies are long runs (``python -m tpufem converge``); these
+tests validate the machinery at toy sizes and the P1→P2 refinement against the reference's own bought
 P2 mesh (``mesh2.2`` = P2 of ``mesh2.1``'s triangulation).
 """
 
@@ -91,7 +90,7 @@ def test_th_study_machinery_toy_with_sparse_reference(monkeypatch):
 
 
 def test_ns_study_machinery_toy():
-    """run_ns_conv (the VERDICT r3 NS accuracy ladder) through two toy
+    """run_ns_conv (the NS accuracy ladder) through two toy
     rungs: finite errors, finest self-error 0, div_rel populated."""
     from tpufem import convergence
 

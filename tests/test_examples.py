@@ -19,8 +19,8 @@ def test_gallery_quick(tmp_path):
 
 def test_xl_dye_movie_quick(tmp_path):
     """The flagship-movie pipeline (run_with_frames → animate) regenerates
-    (VERDICT r4 next #9) — smoke size; the committed 410k artifact is
-    produced by ``python examples/make_gallery.py --xl`` on TPU."""
+    — smoke size; the committed 410k artifact is produced by
+    ``python examples/make_gallery.py --xl``."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
     import make_gallery
 

@@ -1,11 +1,7 @@
-"""Grid renumbering of arbitrary meshes (``tpufem/mesh/gridify.py``).
-
-Round-3 headline: the VMEM grid-kernel CG path (ops/gridop.py +
-solve/pallas_cg.py) previously required our own pad_hole generated
-meshes; gridify makes it work on ANY mesh — validated here on the
-reference's own ``mesh_fine.1`` (the largest bundled asset,
-``/root/reference/resources/mesh_fine.1.node``) against the CSR path on
-the original numbering.
+"""Grid renumbering of arbitrary meshes (``tpufem/mesh/gridify.py``),
+validated on the reference's own ``mesh_fine.1`` (the largest bundled
+asset), plus the storage choice on square-N meshes whose numbering is
+not grid-structured.
 """
 
 import numpy as np
@@ -18,8 +14,6 @@ from tpufem.mesh.gridify import (
     grid_numbering_ok,
     gridify_mesh,
 )
-from tpufem.ops import assembly
-from tpufem.ops.gridop import GridOperator
 from tpufem.workloads import stokes
 
 from tests.conftest import reference_mesh
@@ -62,22 +56,6 @@ def test_periodic_pairs_on_opposite_grid_rows(mesh_fine):
     assert np.array_equal(mj, sj)
 
 
-def test_grid_operator_decomposes_renumbered_stiffness(mesh_fine):
-    g = gridify_mesh(mesh_fine)
-    K = assembly.assemble_csr(g.mesh, assembly.element_stiffness(g.mesh))
-    G = GridOperator.build(K, g.ns, dtype=np.float64)
-    import scipy.sparse as sp
-
-    A = sp.csr_matrix(
-        (np.asarray(K.data), np.asarray(K.indices), np.asarray(K.indptr)),
-        shape=K.shape,
-    )
-    x = np.random.default_rng(0).standard_normal(g.mesh.n_nodes)
-    np.testing.assert_allclose(
-        np.asarray(G.matvec(x)), A @ x, atol=1e-11 * np.abs(A @ x).max()
-    )
-
-
 def test_numbering_check_and_passthrough(mesh_fine):
     # pad_hole generated meshes are already grid-structured → pass-through
     gen = tpufem.generate_annulus_mesh(n_side=20, n_circle=24, pad_hole=True)
@@ -90,42 +68,13 @@ def test_numbering_check_and_passthrough(mesh_fine):
     assert isinstance(g3, Gridified) and m3.n_nodes == g3.ns * g3.ns
 
 
-def test_stokes_grid_path_matches_csr_on_mesh_fine(mesh_fine):
-    """5 squirmer steps: grid kernels (renumbered) ≡ CSR (original)."""
-    base = dict(
-        dt=0.01, nu=1.0, solver="cg", precision="f32", transport="none",
-        cg_iters_visc=40, cg_iters_pressure=120, cg_warm_start=False,
-    )
-    p1 = stokes.StokesProblem.build(
-        mesh_fine,
-        stokes.StokesConfig(cg_storage="csr", cg_precond="jacobi", **base),
-    )
-    s1, m1 = stokes.run(p1, steps=5)
-    p2 = stokes.StokesProblem.build(
-        mesh_fine,
-        stokes.StokesConfig(
-            cg_storage="grid_interpret", cg_precond="twolevel", **base
-        ),
-    )
-    from tpufem.solve.pallas_cg import ViscousGridCG
-
-    assert isinstance(p2.visc_solver, ViscousGridCG)
-    assert p2.mesh.n_nodes > mesh_fine.n_nodes  # renumbered + padded
-    s2, m2 = stokes.run(p2, steps=5)
-    g = gridify_mesh(mesh_fine)
-    u2 = g.pull(np.asarray(s2["u"]))
-    np.testing.assert_allclose(np.asarray(s1["u"]), u2, atol=5e-6)
-    np.testing.assert_allclose(
-        np.asarray(m1["final_div_max"]),
-        np.asarray(m2["final_div_max"]),
-        rtol=1e-4,
-    )
-
-
-def test_auto_storage_falls_back_on_square_nongrid_mesh():
-    """ADVICE r2 #3: a square-node-count mesh with non-grid numbering must
-    fall back to stencil/banded on the auto path, not crash."""
+def test_auto_storage_falls_back_on_square_nongrid_mesh(monkeypatch):
+    """On the GPU, a square-node-count mesh with non-grid numbering must
+    fall back from the stencil operator to banded storage on the auto
+    path, not crash."""
+    from tpufem import platform
     from tpufem.mesh.core import mesh_from_arrays
+    from tpufem.ops.banded import BandedOperator
 
     base = tpufem.generate_annulus_mesh(n_side=20, n_circle=24, pad_hole=True)
     rng = np.random.default_rng(3)
@@ -138,14 +87,14 @@ def test_auto_storage_falls_back_on_square_nongrid_mesh():
     cfgs = stokes.StokesConfig(
         solver="cg", cg_storage="auto", precision="f32", transport="none"
     )
+    monkeypatch.setattr(platform, "backend", lambda: "gpu")
     p = stokes.StokesProblem.build(mesh, cfgs)  # must not raise
-    from tpufem.solve.pallas_cg import ViscousGridCG
-
-    assert not isinstance(p.visc_solver, ViscousGridCG)
+    assert isinstance(p.visc_solver.K, BandedOperator)
+    assert isinstance(p.pressure_solver.K_merged, BandedOperator)
 
 
 def test_ring_slot_overflow_raises_clear_error():
-    """ADVICE r2 #1: n_circle exceeding the hole-interior slots must fail
+    """n_circle exceeding the hole-interior slots must fail
     with an actionable message, not an argmin-of-empty crash."""
     with pytest.raises(ValueError, match="n_circle"):
         tpufem.generate_annulus_mesh(n_side=12, n_circle=64, pad_hole=True)

@@ -194,8 +194,7 @@ def test_stencil_operator_exact_on_arbitrary_mesh(mesh1):
 
 def test_stencil_coverage_on_pad_hole_mesh():
     """pad_hole generation preserves grid numbering: ≥95% of nnz land on
-    static stencil offsets (the O(nnz) TPU SpMV — 43× over banded at 79k
-    nodes, measured on TPU v5e)."""
+    static stencil offsets (the O(nnz) gather-free SpMV)."""
     from tpufem.ops.stencil import StencilOperator
 
     mesh = tpufem.generate_annulus_mesh(n_side=60, n_circle=64, pad_hole=True)
@@ -259,7 +258,7 @@ def test_stencil_stokes_run_matches_csr_on_pad_hole_mesh():
 def test_twolevel_preconditioner_matches_jacobi_with_fewer_iters(mesh1):
     """Two-level (aggregation coarse grid + damped Jacobi) PCG reaches the
     Jacobi-PCG pressure solution in a fraction of the iterations — the
-    mesh-independent large-mesh path (VERDICT r1 next-step #3)."""
+    mesh-independent large-mesh path."""
     from tpufem.ops import calculus
     from tpufem.solve.cg import cg
     from tpufem.solve.twolevel import twolevel_preconditioner
@@ -401,327 +400,6 @@ def test_twolevel_bf16_coarse_matches_f32(mesh1):
     )
 
 
-def test_grid_operator_exact_on_ring_in_grid_mesh():
-    """GridOperator (2-D roll offsets + one-hot MXU remainder) applies the
-    stiffness operator exactly on ring-in-grid pad_hole meshes."""
-    from tpufem.ops.gridop import GridOperator
-
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    K = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh))
-    G = GridOperator.build(K, 40, dtype=jnp.float64)
-    assert G.coverage > 0.95
-    for dy, s in G.offsets:
-        assert abs(dy) <= 3  # bounded 2-D window (+ mod-ns lane wrap)
-    rng = np.random.default_rng(11)
-    x = jnp.asarray(rng.standard_normal(mesh.n_nodes))
-    np.testing.assert_allclose(
-        np.asarray(G.matvec(x)), np.asarray(K.matvec(x)), atol=1e-12
-    )
-    np.testing.assert_allclose(
-        np.asarray(G.diag()), np.asarray(K.diag()), atol=1e-12
-    )
-
-
-def test_grid_operator_rest_target_trades_offsets_for_remainder():
-    """``rest_target`` (streamed-diag regimes: HBM offset planes are free,
-    VMEM one-hot remainder rows are not) takes extra offsets until the
-    remainder fits the target, preserving exactness — the lever that
-    carried the 2M-node pressure kernel under the scoped-VMEM cap."""
-    from tpufem.ops.gridop import GridOperator
-
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    K = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh))
-    G0 = GridOperator.build(K, 40, dtype=jnp.float64)
-    G1 = GridOperator.build(K, 40, dtype=jnp.float64, rest_target=16)
-    G2 = GridOperator.build(K, 40, dtype=jnp.float64, rest_target=0)
-    assert G1.n_rest <= 16 < G0.n_rest
-    assert len(G1.offsets) > len(G0.offsets)
-    assert G2.n_rest == 0  # every coupling fits a dense offset
-    rng = np.random.default_rng(12)
-    x = jnp.asarray(rng.standard_normal(mesh.n_nodes))
-    y_ref = np.asarray(K.matvec(x))
-    for G in (G1, G2):
-        np.testing.assert_allclose(np.asarray(G.matvec(x)), y_ref, atol=1e-12)
-        np.testing.assert_allclose(
-            np.asarray(G.diag()), np.asarray(K.diag()), atol=1e-12
-        )
-
-
-def test_grid_cg_solvers_match_matfree():
-    """ViscousGridCG / PressureGridCG (whole-solve VMEM kernels, interpret
-    mode on CPU) reproduce the matfree CG solutions."""
-    import dataclasses as dc
-
-    from tpufem.ops.gridop import GridOperator
-    from tpufem.solve.pallas_cg import ViscousGridCG
-
-    ns = 40
-    mesh = tpufem.generate_annulus_mesh(n_side=ns, n_circle=48, pad_hole=True)
-    cfg = stokes.StokesConfig(
-        solver="cg", cg_storage="csr", cg_precond="twolevel",
-        cg_iters_visc=30, cg_iters_pressure=60,
-    )
-    prob = stokes.StokesProblem.build(mesh, cfg)
-    vs = dc.replace(prob.visc_solver, tol=0.0)
-    K_csr = assembly.assemble_csr(mesh, assembly.element_stiffness(mesh))
-    G = GridOperator.build(K_csr, ns, dtype=jnp.float64)
-    vg = ViscousGridCG(
-        K=G, interior_mask=vs.interior_mask, dt_nu=vs.dt_nu,
-        iters=vs.iters, tol=0.0, interpret=True,
-    )
-    rng = np.random.default_rng(12)
-    b = jnp.asarray(rng.standard_normal((mesh.n_nodes, 2)))
-    np.testing.assert_allclose(
-        np.asarray(vg.solve(b)), np.asarray(vs.solve(b)), atol=1e-10
-    )
-
-
-def test_grid_storage_stokes_run_matches_csr():
-    """Full Stokes steps with cg_storage='grid_interpret' (the Pallas
-    whole-solve path, interpreted on CPU) track the CSR-storage run."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    base = dict(solver="cg", cg_precond="twolevel",
-                cg_iters_visc=30, cg_iters_pressure=60, cg_warm_start=True)
-    pg = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_storage="grid_interpret", **base)
-    )
-    pc = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_storage="csr", **base)
-    )
-    from tpufem.solve.pallas_cg import PressureGridCG, ViscousGridCG
-
-    assert isinstance(pg.visc_solver, ViscousGridCG)
-    assert isinstance(pg.pressure_solver, PressureGridCG)
-    sg, _ = stokes.run(pg, steps=10)
-    sc, _ = stokes.run(pc, steps=10)
-    # 1e-6: different-but-equivalent CG roundoff paths amplified by ~60
-    # preconditioned iterations (the operators themselves agree to 3e-14)
-    np.testing.assert_allclose(
-        np.asarray(sg["u"]), np.asarray(sc["u"]), atol=1e-6
-    )
-
-
-def test_stream_diags_interpret_matches_all_vmem():
-    """The streamed double-buffer apply (interpret mode emulates the
-    HBM refs + async copies) is bit-identical to the all-VMEM form —
-    the CPU twin of the real-TPU A/B (benchmarks/stream_ab_r3.jsonl:
-    bit-identical u at 79k).  cg_stream_loop is pinned off: the default
-    "auto" engages the fori_loop DMA pipeline in interpret mode, whose
-    different FMA contraction breaks bit-exactness (it has its own
-    toleranced test below)."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    base = dict(solver="cg", cg_precond="twolevel",
-                cg_iters_visc=30, cg_iters_pressure=60, cg_warm_start=True,
-                cg_stream_loop="off")
-    pg_on = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(
-            cg_storage="grid_interpret", cg_stream_diags="on", **base
-        )
-    )
-    pg_off = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(
-            cg_storage="grid_interpret", cg_stream_diags="off", **base
-        )
-    )
-    assert pg_on.visc_solver.stream_diags
-    assert pg_on.pressure_solver.stream_diags
-    s_on, _ = stokes.run(pg_on, steps=3)
-    s_off, _ = stokes.run(pg_off, steps=3)
-    np.testing.assert_array_equal(
-        np.asarray(s_on["u"]), np.asarray(s_off["u"])
-    )
-
-
-def test_stream_loop_interpret_matches_unrolled_stream():
-    """The fori_loop DMA pipeline (cg_stream_loop='on': one stacked
-    padded HBM array, dynamic plane index/shifts, static scratch slots)
-    matches the unrolled streamed form.  Not asserted bit-exact: the
-    interpret emulation jit-compiles through XLA:CPU, which FMA-contracts
-    the rolled loop differently from the unrolled chain (measured one-ULP
-    drift per CG iteration, ≤3e-13 over 3 steps); on-device equivalence
-    is A/B-validated separately."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    base = dict(solver="cg", cg_precond="twolevel",
-                cg_iters_visc=30, cg_iters_pressure=60, cg_warm_start=True,
-                cg_storage="grid_interpret", cg_stream_diags="on")
-    pg_loop = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_stream_loop="on", **base)
-    )
-    pg_unrolled = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_stream_loop="off", **base)
-    )
-    assert pg_loop.visc_solver.stream_loop
-    assert pg_loop.pressure_solver.stream_loop
-    s_a, _ = stokes.run(pg_loop, steps=3)
-    s_b, _ = stokes.run(pg_unrolled, steps=3)
-    np.testing.assert_allclose(
-        np.asarray(s_a["u"]), np.asarray(s_b["u"]), atol=1e-11
-    )
-
-
-@pytest.mark.parametrize("sloop", ["auto", "off"])
-def test_hbm_io_interpret_matches_streamed(sloop):
-    """XL mode (cg_hbm_io: HBM-resident b/x0/out + ref-carried CG,
-    _cg_core_ref) is bit-identical to the plain streamed form — the
-    arithmetic order is unchanged, only where state lives differs.
-    CPU twin of the ≥1.1M-node TPU regime (interpret emulates the HBM
-    refs + async copies); covered over both DMA pipeline forms (the
-    fori_loop stacked-plane form and the unrolled chain)."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    # cg_batch_cols off: the hbm_io viscous form is always sequential
-    # per-column (ref-carried), so bit-exactness vs the plain streamed
-    # form requires the sequential column CGs there too
-    base = dict(solver="cg", cg_precond="twolevel",
-                cg_iters_visc=30, cg_iters_pressure=60, cg_warm_start=True,
-                cg_storage="grid_interpret", cg_stream_diags="on",
-                cg_stream_loop=sloop, cg_batch_cols="off")
-    pg_xl = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_hbm_io="on", **base)
-    )
-    pg_off = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_hbm_io="off", **base)
-    )
-    assert pg_xl.visc_solver.hbm_io and pg_xl.pressure_solver.hbm_io
-    assert not pg_off.visc_solver.hbm_io
-    s_a, _ = stokes.run(pg_xl, steps=3)
-    s_b, _ = stokes.run(pg_off, steps=3)
-    np.testing.assert_array_equal(np.asarray(s_a["u"]), np.asarray(s_b["u"]))
-
-
-def test_roll_cache_matches_plain():
-    """cg_roll_cache (sublane-roll group cache, round-4 roofline lever)
-    is bit-exact vs the chained-dynamic-roll apply: identical roll
-    amounts and FMA order, only the sublane rotate is hoisted out of
-    the per-plane path.  Covered over the streamed pipeline (where the
-    cache overlaps the run-ahead DMAs)."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    base = dict(solver="cg", cg_precond="twolevel",
-                cg_iters_visc=25, cg_iters_pressure=40,
-                cg_warm_start=True, cg_storage="grid_interpret",
-                cg_stream_diags="on", cg_stream_loop="on")
-    pa = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_roll_cache="on", **base)
-    )
-    pb = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_roll_cache="off", **base)
-    )
-    assert pa.visc_solver.roll_cache and not pb.visc_solver.roll_cache
-    assert pa.pressure_solver.roll_cache and not pb.pressure_solver.roll_cache
-    s_a, _ = stokes.run(pa, steps=3)
-    s_b, _ = stokes.run(pb, steps=3)
-    np.testing.assert_array_equal(np.asarray(s_a["u"]), np.asarray(s_b["u"]))
-
-
-def test_batch_cols_matches_sequential():
-    """Column-batched viscous CG (both velocity columns in lockstep, one
-    plane stream per iteration — round-4 roofline lever) ≡ the
-    sequential per-column CGs at fixed iteration counts (per column the
-    algorithm is unchanged; only the loop nesting differs)."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    base = dict(solver="cg", cg_precond="twolevel",
-                cg_iters_visc=25, cg_iters_pressure=40,
-                cg_warm_start=False, cg_storage="grid_interpret")
-    pa = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_batch_cols="on", **base)
-    )
-    pb = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_batch_cols="off", **base)
-    )
-    assert pa.visc_solver.batch_cols and not pb.visc_solver.batch_cols
-    s_a, _ = stokes.run(pa, steps=2)
-    s_b, _ = stokes.run(pb, steps=2)
-    np.testing.assert_allclose(
-        np.asarray(s_a["u"]), np.asarray(s_b["u"]), atol=1e-11
-    )
-
-
-@pytest.mark.parametrize("sloop", ["on", "off"])
-def test_precond_bf16_converges_to_same_solution(sloop):
-    """cg_precond_bf16: the preconditioner's two K-applies stream a bf16
-    plane copy (round-4 roofline: 2 of 3 plane streams per two-level
-    iteration at half width).  The preconditioner changes, the operator
-    does not — with tolerance CG both forms must converge to the same
-    fields.  Covered over both DMA pipeline forms."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    base = dict(solver="cg", cg_precond="twolevel",
-                cg_iters_visc=60, cg_iters_pressure=120,
-                cg_tol_visc=1e-8, cg_tol_pressure=1e-8,
-                cg_warm_start=True, cg_storage="grid_interpret",
-                cg_stream_diags="on", cg_stream_loop=sloop)
-    pg_16 = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_precond_bf16="on", **base)
-    )
-    pg_32 = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(cg_precond_bf16="off", **base)
-    )
-    assert pg_16.pressure_solver.precond_bf16
-    assert not pg_32.pressure_solver.precond_bf16
-    s_a, m_a = stokes.run(pg_16, steps=3)
-    s_b, m_b = stokes.run(pg_32, steps=3)
-    np.testing.assert_allclose(
-        np.asarray(s_a["u"]), np.asarray(s_b["u"]), atol=1e-6
-    )
-    np.testing.assert_allclose(
-        float(np.asarray(m_a["final_div_max"])[-1]),
-        float(np.asarray(m_b["final_div_max"])[-1]), rtol=1e-3,
-    )
-
-
-def test_fused_grid_step_matches_unfused():
-    """GridStokesStep (the whole double-projection step in ONE kernel)
-    reproduces the unfused grid-solver path.  Tolerance reflects CG
-    roundoff amplification (operators match to 3e-14; ~60 preconditioned
-    iterations at kappa~1e5 amplify to ~1e-8)."""
-    import dataclasses as dc
-
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    cfg = stokes.StokesConfig(
-        solver="cg", cg_storage="grid_interpret", cg_precond="twolevel",
-        cg_iters_visc=30, cg_iters_pressure=60, cg_warm_start=True,
-        cg_tol_visc=1e-7, cg_tol_pressure=1e-7, grid_steps_per_call=1,
-    )
-    pg = stokes.StokesProblem.build(mesh, cfg)
-    from tpufem.solve.pallas_step import GridStokesStep
-
-    assert isinstance(pg.grid_step, GridStokesStep)
-    pu = dc.replace(pg, grid_step=None)
-    sg, mg = stokes.run(pg, steps=10)
-    su, mu = stokes.run(pu, steps=10)
-    np.testing.assert_allclose(
-        np.asarray(sg["u"]), np.asarray(su["u"]), atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(mg["final_div_max"]), np.asarray(mu["final_div_max"]),
-        rtol=1e-6,
-    )
-
-
-def test_fused_multi_step_is_bit_exact():
-    """grid_steps_per_call=5 (five physics steps per kernel launch) is
-    BIT-exact vs K=1 — same op sequence, only the loop placement moves —
-    and the per-step metric series comes out flattened."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    base = dict(
-        solver="cg", cg_storage="grid_interpret", cg_precond="twolevel",
-        cg_iters_visc=30, cg_iters_pressure=60, cg_warm_start=True,
-        cg_tol_visc=1e-7, cg_tol_pressure=1e-7, transport="none",
-    )
-    p1 = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(grid_steps_per_call=1, **base)
-    )
-    p5 = stokes.StokesProblem.build(
-        mesh, stokes.StokesConfig(grid_steps_per_call=5, **base)
-    )
-    assert p5.grid_step.steps_per_call == 5
-    s1, m1 = stokes.run(p1, steps=10)
-    s5, m5 = stokes.run(p5, steps=10)
-    np.testing.assert_array_equal(np.asarray(s1["u"]), np.asarray(s5["u"]))
-    d1 = np.asarray(m1["final_div_max"])
-    d5 = np.asarray(m5["final_div_max"])
-    assert d1.shape == d5.shape == (10,)
-    np.testing.assert_array_equal(d1, d5)
-
-
 def test_stencil_refill_matches_dense_convection():
     """StencilRefill: per-step C(u) scattered into stencil planes equals
     the dense-assembled convection operator product."""
@@ -743,100 +421,3 @@ def test_stencil_refill_matches_dense_convection():
     # refilled under jit too (the per-step path runs inside lax.scan)
     y = jax.jit(lambda e, v: rf.refill(e).matvec(v))(elem, x)
     np.testing.assert_allclose(np.asarray(y), np.asarray(C @ x), atol=1e-12)
-
-
-def test_pressure_lean_kernel_matches_full_interpret():
-    """lean=True (the rhs prep / slave copy-back moved to XLA outside the
-    kernel — the form the ≥360k streamed regime always uses) is
-    bit-equivalent to the full in-kernel form.  The interpret run covers
-    the lean MATH on CPU; the DMA-streamed lean kernel itself is
-    A/B-validated bit-identical on real TPU at 79k (BASELINE.md)."""
-    import dataclasses as dc
-
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    prob = stokes.StokesProblem.build(
-        mesh,
-        stokes.StokesConfig(
-            solver="cg", cg_storage="grid_interpret", cg_precond="twolevel",
-            cg_iters_visc=30, cg_iters_pressure=60, cg_warm_start=True,
-        ),
-    )
-    ps_full = prob.pressure_solver
-    ps_lean = dc.replace(ps_full, lean=True)
-    rng = np.random.default_rng(7)
-    b = jnp.asarray(rng.standard_normal(mesh.n_nodes))
-    x0 = jnp.asarray(rng.standard_normal(mesh.n_nodes))
-    np.testing.assert_array_equal(
-        np.asarray(ps_lean.solve(b, x0=x0)), np.asarray(ps_full.solve(b, x0=x0))
-    )
-
-
-def test_args_payload_scan_matches_closure(monkeypatch):
-    """The argument-passing plain-scan form (XL regime: operator arrays
-    as jit args instead of closure literals, engaged above
-    _ARGS_PAYLOAD_BYTES) produces the same trajectory.  Not bit-exact:
-    XLA constant-folds literal operands with different FMA contraction
-    than runtime arguments (measured ≤1e-16 per value over 3 steps)."""
-    mesh = tpufem.generate_annulus_mesh(n_side=24, n_circle=32, pad_hole=True)
-    cfg = stokes.StokesConfig(solver="cg", cg_storage="grid_interpret",
-                              cg_precond="twolevel", cg_warm_start=True)
-    p = stokes.StokesProblem.build(mesh, cfg)
-    s_closure, _ = stokes.run(p, steps=3)
-    stokes._RUN_CACHE.clear()
-    monkeypatch.setattr(stokes, "_ARGS_PAYLOAD_BYTES", 0)
-    p2 = stokes.StokesProblem.build(mesh, cfg)
-    s_args, _ = stokes.run(p2, steps=3)
-    np.testing.assert_allclose(
-        np.asarray(s_closure["u"]), np.asarray(s_args["u"]),
-        rtol=1e-11, atol=1e-14,
-    )
-
-
-def test_stream_chunk_matches_single_plane():
-    """cg_stream_chunk=2 (two diag planes per async copy — the round-5
-    DMA-issue-count lever) is bit-exact vs the one-plane pipeline: same
-    planes, same FMA order, half the copies.  Covered on the pressure
-    kernel and both viscous forms that take the chunked path (the
-    sequential streamed form and the hbm XL core)."""
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    for extra in (dict(cg_batch_cols="off"), dict(cg_hbm_io="on",
-                                                  cg_batch_cols="off")):
-        base = dict(solver="cg", cg_precond="twolevel",
-                    cg_iters_visc=25, cg_iters_pressure=40,
-                    cg_warm_start=True, cg_storage="grid_interpret",
-                    cg_stream_diags="on", cg_stream_loop="on", **extra)
-        pa = stokes.StokesProblem.build(
-            mesh, stokes.StokesConfig(cg_stream_chunk=2, **base)
-        )
-        pb = stokes.StokesProblem.build(
-            mesh, stokes.StokesConfig(cg_stream_chunk=1, **base)
-        )
-        assert pa.pressure_solver.stream_chunk == 2
-        assert pa.visc_solver.stream_chunk == 2
-        s_a, _ = stokes.run(pa, steps=3)
-        s_b, _ = stokes.run(pb, steps=3)
-        np.testing.assert_array_equal(np.asarray(s_a["u"]),
-                                      np.asarray(s_b["u"]))
-
-
-def test_stream_probes_run_and_are_wrong():
-    """The nodma/nofma measurement probes (roofline.py) execute and — by
-    design — do NOT reproduce the real solve (they skip the DMAs or the
-    FMAs).  This guards the probe plumbing without ever letting a probe
-    masquerade as a correct solver."""
-    import dataclasses as dc
-
-    mesh = tpufem.generate_annulus_mesh(n_side=40, n_circle=48, pad_hole=True)
-    base = dict(solver="cg", cg_precond="twolevel",
-                cg_iters_visc=10, cg_iters_pressure=15,
-                cg_warm_start=False, cg_storage="grid_interpret",
-                cg_stream_diags="on", cg_stream_loop="on")
-    prob = stokes.StokesProblem.build(mesh, stokes.StokesConfig(**base))
-    rng = np.random.default_rng(3)
-    b = jnp.asarray(rng.standard_normal(mesh.n_nodes))
-    x_real = np.asarray(prob.pressure_solver.solve(b))
-    for probe in ("nofma",):
-        ps = dc.replace(prob.pressure_solver, probe=probe)
-        x_probe = np.asarray(ps.solve(b))
-        assert np.isfinite(x_probe).all()
-        assert not np.allclose(x_probe, x_real, atol=1e-12), probe

@@ -55,9 +55,9 @@ def test_sharded_step_matches_single_device(mesh1, dmesh):
 
 def test_multimesh_ensemble_matches_per_mesh_single_device(dmesh):
     """Per-simulation MESHES (jittered geometry realizations): the sharded
-    ensemble step ≡ per-mesh single-device steps (TODO r1 'per-sim
-    meshes').  pad_hole generation keeps node counts and boundary index
-    sets identical across seeds, so only the interior geometry varies."""
+    ensemble step ≡ per-mesh single-device steps.  pad_hole generation
+    keeps node counts and boundary index sets identical across seeds, so
+    only the interior geometry varies."""
     import tpufem
     from tpufem.parallel import MultiMeshEnsemble, make_multimesh_step
 
@@ -103,9 +103,8 @@ def test_multimesh_ensemble_matches_per_mesh_single_device(dmesh):
 
 @pytest.mark.parametrize("tr", ["dye", "tracers"])
 def test_multimesh_transport_matches_per_mesh_single_device(dmesh, tr):
-    """Per-sim-mesh ensembles WITH transport (TODO r2: 'pad to a common
-    C_max to lift'): stacked locator tables padded to a fleet-wide
-    candidate width reproduce the per-mesh single-device dye/tracer
+    """Per-sim-mesh ensembles WITH transport: stacked locator tables
+    padded to a fleet-wide candidate width reproduce the per-mesh single-device dye/tracer
     updates exactly."""
     import tpufem
     from tpufem.parallel import MultiMeshEnsemble, make_multimesh_step
@@ -178,7 +177,7 @@ def test_grid_locator_with_cmax_padding_is_inert(mesh1):
 
 
 def test_sharded_report_ensemble_matches_single(mesh1, dmesh):
-    """Sharded 'report'-variant rotating-cylinder ensemble (VERDICT r1 #7)
+    """Sharded 'report'-variant rotating-cylinder ensemble
     ≡ per-omega single-device report steps: RHS-overwrite BCs, pinned +
     de-meaned + smoothed pressure, single projection, BC ramp."""
     omegas = np.array([2.0, 5.0, -3.0, 8.0])
@@ -350,7 +349,7 @@ def test_halo_pressure_solver_matches_single_device():
 def test_stencil_halo_cg_matches_single_device():
     """Distributed stencil-offset SpMV (ppermute strips of width
     max|offset| + one tiny remainder all_gather) ≡ single-device stencil
-    viscous solve — the O(nnz) multi-chip SpMV (TODO r2)."""
+    viscous solve — the O(nnz) multi-device SpMV."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     import tpufem
@@ -455,39 +454,6 @@ def test_sharded_matfree_stokes_step_stencil_matches_single():
     )
 
 
-def test_sharded_grid_stokes_step_matches_single(dmesh):
-    """Full space-sharded GRID-KERNEL projection step (VERDICT r3 next
-    #6): make_sharded_matfree_step over grid storage — sharded offset
-    matvecs with ppermute halos + element-sharded div/grad — ≡ the
-    single-device grid-kernel step to ≤1e-8."""
-    import tpufem
-    from tpufem.parallel.stokes_sharded import make_sharded_matfree_step
-    from tpufem.solve.pallas_cg import ViscousGridCG
-
-    mesh = tpufem.generate_annulus_mesh(n_side=28, n_circle=32, pad_hole=True)
-    cfg = stokes.StokesConfig(
-        solver="cg", cg_storage="grid_interpret", precision="f64",
-        cg_precond="twolevel", cg_iters_visc=25, cg_iters_pressure=40,
-        cg_warm_start=False, transport="none",
-    )
-    problem = stokes.StokesProblem.build(mesh, cfg)
-    assert isinstance(problem.visc_solver, ViscousGridCG)
-    sh_step = make_sharded_matfree_step(dmesh, problem)
-
-    state = stokes.initial_state(problem)
-    step_fn = stokes.make_step(problem)
-    u_sh = state["u"]
-    st = state
-    for _ in range(2):
-        u_sh, m_sh = sh_step(u_sh)
-        st, m_single = step_fn(st, None)
-    np.testing.assert_allclose(np.asarray(u_sh), np.asarray(st["u"]), atol=1e-8)
-    np.testing.assert_allclose(
-        float(m_sh["final_div_max"]), float(m_single["final_div_max"]),
-        rtol=1e-5,
-    )
-
-
 def test_sharded_matfree_stokes_step_matches_single(mesh1):
     """Full space-sharded matrix-free Stokes step (halo CG solves +
     element-sharded div/grad) ≡ single-device CG path."""
@@ -531,138 +497,3 @@ def test_sharded_state_is_actually_sharded(mesh1, dmesh):
     shardings = {k: v.sharding for k, v in state.items()}
     # batch axis sharded over "data"
     assert any("data" in str(s.spec) for s in shardings.values())
-
-
-def test_sharded_grid_solvers_match_single_device(dmesh):
-    """VERDICT r2 #5: the grid-offset kernels' multi-chip form — row-strip
-    sharded offset matvecs with ppermute halos, psum'd dots/remainder/
-    coarse-restriction — equals the single-device grid solvers."""
-    import tpufem
-    from tpufem.parallel.grid_sharded import make_sharded_grid_solvers
-    from tpufem.solve.pallas_cg import ViscousGridCG
-    from tpufem.workloads import stokes
-
-    mesh = tpufem.generate_annulus_mesh(n_side=28, n_circle=32, pad_hole=True)
-    problem = stokes.StokesProblem.build(
-        mesh,
-        stokes.StokesConfig(
-            solver="cg", cg_storage="grid_interpret", precision="f64",
-            cg_precond="twolevel", cg_iters_visc=25, cg_iters_pressure=40,
-            cg_warm_start=False, transport="none",
-        ),
-    )
-    assert isinstance(problem.visc_solver, ViscousGridCG)
-    vs, ps = make_sharded_grid_solvers(dmesh, problem)
-    rng = np.random.default_rng(0)
-    b2 = jnp.asarray(rng.standard_normal((mesh.n_nodes, 2)))
-    np.testing.assert_allclose(
-        np.asarray(vs(b2)), np.asarray(problem.visc_solver.solve(b2)),
-        atol=1e-12,
-    )
-    b1 = jnp.asarray(rng.standard_normal(mesh.n_nodes))
-    np.testing.assert_allclose(
-        np.asarray(ps(b1)), np.asarray(problem.pressure_solver.solve(b1)),
-        atol=1e-9,
-    )
-
-
-def test_sharded_grid_solvers_tolerance_early_exit(dmesh):
-    """Early-exit (tol > 0) sharded CG: the psum'd residual test keeps the
-    while_loop SPMD-uniform and both forms converge to the same solution
-    within tolerance (iterates differ only by the strip-partitioned dot
-    summation order)."""
-    import tpufem
-    from tpufem.parallel.grid_sharded import make_sharded_grid_solvers
-    from tpufem.workloads import stokes
-
-    mesh = tpufem.generate_annulus_mesh(n_side=28, n_circle=32, pad_hole=True)
-    problem = stokes.StokesProblem.build(
-        mesh,
-        stokes.StokesConfig(
-            solver="cg", cg_storage="grid_interpret", precision="f64",
-            cg_precond="twolevel", cg_iters_visc=60, cg_iters_pressure=80,
-            cg_tol_visc=1e-8, cg_tol_pressure=1e-8,
-            cg_warm_start=False, transport="none",
-        ),
-    )
-    vs, ps = make_sharded_grid_solvers(dmesh, problem)
-    rng = np.random.default_rng(1)
-    b2 = jnp.asarray(rng.standard_normal((mesh.n_nodes, 2)))
-    np.testing.assert_allclose(
-        np.asarray(vs(b2)), np.asarray(problem.visc_solver.solve(b2)),
-        atol=1e-6,
-    )
-    b1 = jnp.asarray(rng.standard_normal(mesh.n_nodes))
-    np.testing.assert_allclose(
-        np.asarray(ps(b1)), np.asarray(problem.pressure_solver.solve(b1)),
-        atol=1e-5,
-    )
-
-
-def test_sharded_grid_solvers_rdma_halo_matches_ppermute(dmesh):
-    """VERDICT r4 next #7: the in-kernel remote-DMA halo form
-    (parallel/grid_remote_dma.py) reproduces the ppermute solvers on the
-    virtual 8-device mesh, emulated by the distributed TPU interpret
-    mode (remote DMAs + semaphores + barrier).  Real-pod validation
-    explicitly deferred (no multi-chip hardware).
-
-    The halo exchange itself is BIT-equal (pure data movement —
-    test_halo_rdma_race_free_and_equal); composed through the solvers
-    the outputs agree to ~1 ulp (measured max 1.3e-15 on O(1) f64
-    fields): XLA fuses the offset-roll FMAs differently around a
-    pallas_call boundary than around a ppermute+concatenate, which
-    reassociates contractions — a compilation artifact, not a data
-    difference.  Iteration counts are tiny (2/2, Jacobi): each emulated
-    remote-DMA call costs ~1 s of interpreter machinery, and the solvers
-    compose the SAME halo function linearly."""
-    import tpufem
-    from tpufem.parallel.grid_sharded import make_sharded_grid_solvers
-    from tpufem.workloads import stokes
-
-    mesh = tpufem.generate_annulus_mesh(n_side=28, n_circle=32, pad_hole=True)
-    problem = stokes.StokesProblem.build(
-        mesh,
-        stokes.StokesConfig(
-            solver="cg", cg_storage="grid_interpret", precision="f64",
-            cg_precond="jacobi", cg_iters_visc=2, cg_iters_pressure=2,
-            cg_warm_start=False, transport="none",
-        ),
-    )
-    vs_pp, ps_pp = make_sharded_grid_solvers(dmesh, problem)
-    vs_rd, ps_rd = make_sharded_grid_solvers(dmesh, problem, halo="rdma")
-    rng = np.random.default_rng(7)
-    b2 = jnp.asarray(rng.standard_normal((mesh.n_nodes, 2)))
-    np.testing.assert_allclose(
-        np.asarray(vs_rd(b2)), np.asarray(vs_pp(b2)), atol=1e-13, rtol=0
-    )
-    b1 = jnp.asarray(rng.standard_normal(mesh.n_nodes))
-    np.testing.assert_allclose(
-        np.asarray(ps_rd(b1)), np.asarray(ps_pp(b1)), atol=1e-13, rtol=0
-    )
-
-
-def test_halo_rdma_race_free_and_equal():
-    """The remote-DMA halo exchange alone, race-detected: interpret mode's
-    vector-clock race detector runs clean and the result equals the
-    ppermute halo bit-for-bit."""
-    import jax
-    from jax import shard_map
-    from jax.sharding import Mesh as DeviceMesh, PartitionSpec as P
-    from tpufem.parallel import grid_remote_dma, grid_sharded
-
-    S, ns, d = 8, 32, 3
-    dmesh1d = DeviceMesh(np.asarray(jax.devices()[:8]), ("space",))
-    x = jnp.arange(ns * ns, dtype=jnp.float64).reshape(ns, ns)
-
-    halo = grid_remote_dma.make_halo_rdma("space")
-    f_rdma = jax.jit(shard_map(
-        lambda xl: halo(xl, d), mesh=dmesh1d,
-        in_specs=P("space", None), out_specs=P("space", None),
-        check_vma=False,
-    ))
-    f_pp = jax.jit(shard_map(
-        lambda xl: grid_sharded._halo_exchange(xl, d, S, "space"),
-        mesh=dmesh1d, in_specs=P("space", None),
-        out_specs=P("space", None), check_vma=False,
-    ))
-    np.testing.assert_array_equal(np.asarray(f_rdma(x)), np.asarray(f_pp(x)))

@@ -69,15 +69,28 @@ def test_poisson_cg_matches_dense_on_generated_mesh():
 
 
 def test_poisson_cg_refuses_noninjective_periodic_pairs():
-    """mesh2.1's duplicated periodic pair needs the dense path's
-    sequential elimination semantics — the CSR surgery refuses instead
-    of silently diverging."""
+    """A duplicated periodic pair (two x≈0 nodes sharing an x≈L partner,
+    as on the reference's mesh2.1) needs the dense path's sequential
+    elimination semantics — the CSR surgery refuses instead of silently
+    diverging.  The mesh is a generated one with its right edge nudged
+    into exactly that configuration."""
     import pytest
     import tpufem
-    from tpufem import config as cfg
+    from tpufem import bc
+    from tpufem.mesh.core import mesh_from_arrays
     from tpufem.workloads import poisson
 
-    mesh = tpufem.load_mesh(cfg.reference_mesh_path("mesh2.1"))
+    base = tpufem.generate_annulus_mesh(n_side=12, n_circle=16)
+    coords = np.array(base.coords)
+    right = np.nonzero(np.abs(coords[:, 0] - 1.0) < 1e-9)[0]
+    right = right[np.argsort(coords[right, 1])]
+    h = float(np.diff(coords[right, 1]).min())
+    j, k = right[4], right[5]
+    coords[j, 1] += 0.1 * h  # right node j drifts up ...
+    coords[k, 0] -= 0.3 * h  # ... and its upper neighbour leaves the edge
+    mesh = mesh_from_arrays(coords, np.asarray(base.tris), base.markers)
+    masters, slaves = bc.find_periodic_pairs(mesh.coords)
+    assert len(set(slaves.tolist())) < len(slaves)  # j has two masters
     with pytest.raises(AssertionError, match="injective"):
         poisson.solve(mesh, poisson.PoissonConfig(solver="cg"))
 

@@ -112,7 +112,7 @@ def test_griddata_dye_run(mesh1):
 
 
 def test_report_variant_cg_matches_dense(mesh5):
-    """VERDICT r2 #6: variant='report' on the matrix-free CG path (pinned
+    """variant='report' on the matrix-free CG path (pinned
     PressureCG + pin-masked smoothing CG) vs the dense penalty-f64 path.
     The residual ~3e-4 difference is the documented mass-weighting gap
     between the penalty and DOF-merged periodic forms (matfree.py

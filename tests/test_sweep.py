@@ -1,8 +1,7 @@
 """Squirmer-gait sweep — scientific-result parity (README.md:43-45).
 
-The full 6000-step campaign runs on TPU in ~40 s (reproduced values:
-neutral 46.7%, pusher 98.8%, puller 99.6% vs the reference's published
-~50/97/98%).  The CI test runs a shortened campaign and checks the
+The full 6000-step campaign reproduced neutral 46.7%, pusher 98.8%,
+puller 99.6% vs the reference's published ~50/97/98%.  The CI test runs a shortened campaign and checks the
 published ordering: swimming gaits (pusher/puller) feed far better than
 the neutral squirmer.
 """

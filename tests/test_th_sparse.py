@@ -84,7 +84,7 @@ def test_sparse_th_warm_start_consistency(mesh22):
 
 
 def test_th_sparse_scale_bench_row():
-    """bench_large.run_th_sparse (the VERDICT r2 #7 artifact producer)
+    """bench_large.run_th_sparse (the TH scale row)
     returns a physics-gated row: weak divergence ≪ the same-mesh P1/P1
     projection's, finite velocity, timed."""
     from tpufem import bench_large
@@ -122,54 +122,6 @@ def test_th_inner_twolevel_matches_jacobi():
     np.testing.assert_allclose(
         np.asarray(pt.solve_vel(b)), np.asarray(pj.solve_vel(b)), atol=1e-8
     )
-
-
-def test_grid_th_engine_matches_csr_engine():
-    """The whole-solve-kernel TH engine (GridTHProblem / th_grid_step,
-    interpret mode on CPU) reproduces the CSR Uzawa stepper: same θ-scheme,
-    every inner solve as one Pallas kernel over gridify_points rasters."""
-    mesh = tpufem.generate_annulus_mesh(n_side=20, n_circle=32)
-    m2 = p2_refine(mesh, snap_center=(0.5, 0.5), snap_radius=0.25)
-    sp = th_sparse.SparseTHProblem.build(
-        m2,
-        th_sparse.SparseTHConfig(
-            dt=0.01, nu=1.0, iters_inner=60, iters_outer=40, iters_plap=20
-        ),
-    )
-    us, _, _ = th_sparse.run(sp, steps=5)
-    gp = th_sparse.GridTHProblem.build(sp, interpret=True, tol_inner=0.0)
-    ug, _, mg = th_sparse.run_grid(gp, steps=5)
-    np.testing.assert_allclose(np.asarray(us), np.asarray(ug), atol=1e-6)
-    assert float(np.asarray(mg["max_u"])) == pytest.approx(2.0, rel=1e-3)
-    assert float(np.asarray(mg["div_weak_max"])) < 1e-6
-
-
-def test_grid_th_vel_restarts_break_f32_stagnation():
-    """``vel_restarts`` (VERDICT r4 #5): re-entering the velocity CG
-    kernel with ``x0`` = the previous solution restarts the recurrence
-    from the TRUE residual, so the f32 tolerance early-exit stops firing
-    ~1e-5 short of what f32 can represent.  Measured on this config
-    (f32, interpret): weak divergence 1.5e-6 → 3.6e-8 with one restart
-    at n_side=40 — the test asserts a conservative ≥5× improvement."""
-    mesh = tpufem.generate_annulus_mesh(n_side=28, n_circle=32)
-    m2 = p2_refine(mesh, snap_center=(0.5, 0.5), snap_radius=0.25)
-    sp = th_sparse.SparseTHProblem.build(
-        m2,
-        th_sparse.SparseTHConfig(
-            dt=0.01, nu=1.0, precision="f32",
-            iters_inner=60, iters_outer=40, iters_plap=20,
-        ),
-    )
-    divs = {}
-    for vr in (0, 1):
-        gp = th_sparse.GridTHProblem.build(
-            sp, interpret=True, tol_inner=1e-6, tol_outer=2e-6,
-            vel_restarts=vr,
-        )
-        u, _, m = th_sparse.run_grid(gp, steps=3)
-        assert float(np.asarray(m["max_u"])) == pytest.approx(2.0, rel=1e-3)
-        divs[vr] = float(np.abs(np.asarray(sp.b_apply(u))).max())
-    assert divs[1] < divs[0] / 5, divs
 
 
 def test_steady_uzawa_matches_dense_taylor_hood():

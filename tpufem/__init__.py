@@ -1,6 +1,6 @@
-"""tpufem — a TPU-native unstructured-FEM fluid-simulation framework.
+"""tpufem — an accelerator-native unstructured-FEM fluid-simulation framework.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
+Built from scratch in JAX/XLA with the capabilities of the reference
 project ``TobiasHoffmannP/PUC-Fluidsimulation-Project`` (see SURVEY.md):
 Triangle-mesh P1 FEM, Poisson / heat / Stokes-projection solvers, squirmer
 and periodic boundary conditions, dye and tracer transport, diagnostics,
@@ -21,7 +21,7 @@ Quick start::
 from tpufem.mesh import Mesh, load_mesh, generate_annulus_mesh
 from tpufem.mesh.gridify import Gridified, gridify_mesh
 from tpufem.mesh.p2 import p2_refine
-from tpufem import ops, bc, solve, transport, diag
+from tpufem import ops, bc, platform, solve, transport, diag
 from tpufem.config import enable_x64, default_float
 
 __version__ = "0.1.0"
@@ -35,6 +35,7 @@ __all__ = [
     "p2_refine",
     "ops",
     "bc",
+    "platform",
     "solve",
     "transport",
     "diag",

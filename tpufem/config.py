@@ -2,7 +2,7 @@
 
 The reference enables float64 in every main file
 (``/root/reference/code/StokesColor.py:14``); we expose that as an explicit
-opt-in so the framework can also run the fast f32 path on TPU.
+opt-in so the framework can also run the fast f32 path.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Accuracy-at-scale convergence study (``python -m tpufem converge``).
 
-Round 2 proved the large-mesh paths are *fast*; this study proves they
-are *correct physics* (VERDICT r2 missing #2): the committed large-mesh
+The large-mesh paths were first shown to be *fast*; this study shows
+they are *correct physics*: the committed large-mesh
 numbers previously validated finiteness only, while ``final_div_max``
 grew with N and nothing separated "fast solver" from "fast noise".
 
@@ -159,7 +159,7 @@ TH_SIZES = [
 # dense factorization ceiling).  NOT part of the monotone-decrease gate:
 # the lifted P1/P1 error vs same-mesh TH bottoms out at ~0.118 near
 # h≈1/48 and GROWS under further refinement (0.133 at 60, 0.240 at 80 —
-# dt-, precision- and solver-tolerance-independent, measured round 3).
+# dt-, precision- and solver-tolerance-independent).
 # Once the Dirichlet-traction defect is lifted, the un-stabilized
 # P1/P1 pair's LBB modes dominate: the projection scheme has a genuine
 # accuracy FLOOR, which is the quantitative form of the reference's own
@@ -258,7 +258,7 @@ NS_SIZES = [
     ("6.5k", 80, 96),
     ("26k", 160, 192),
     ("79k", 280, 320),
-    # 160k reference rung (VERDICT r4 next #4): a finer oracle for the
+    # 160k reference rung: a finer oracle for the
     # lower rungs' err_vs_finest — at dt ∝ h this is ~1560 steps
     ("160k", 400, 448),
 ]
@@ -272,7 +272,7 @@ NS_T = 0.05  # physical horizon (125 coarse steps): the impulsively-forced
 def run_ns_conv(sizes=None, steps0: int | None = None, check: bool = True):
     """NS velocity self-convergence + normalized-divergence ladder.
 
-    Answers VERDICT r3 weak #2: nothing showed the NS path's error
+    Before it, nothing showed the NS path's error
     decreasing under refinement, and its div_rel (~0.15–0.20 measured at
     26k–79k after 50 dt=1e-4 steps from rest) sits ~8× above the Stokes
     path's.  The ladder measures BOTH curves under dt ∝ h refinement:
@@ -306,9 +306,7 @@ def run_ns_conv(sizes=None, steps0: int | None = None, check: bool = True):
             cg_iters_visc=30, cg_iters_pressure=120, cg_tol=1e-5,
         )
         prob = ns.NSProblem.build(mesh, cfg)
-        chunk = 5 if prob.grid_refill is not None else 1
-        steps -= steps % chunk
-        u, _ = ns.run(prob, steps=steps, host_loop=True, chunk=chunk)
+        u, _ = ns.run(prob, steps=steps, host_loop=True)
         u_host = np.asarray(u, dtype=np.float64)
         elapsed = time.perf_counter() - t0
         assert np.isfinite(u_host).all(), f"NS {label} diverged"

@@ -1,6 +1,6 @@
 """The Mesh container: static geometry precomputed once, device-ready.
 
-Design (TPU-first): all per-element quantities the reference recomputes
+Design: all per-element quantities the reference recomputes
 inside Python loops every call (signed determinants, areas, P1 basis
 gradients — e.g. ``/root/reference/code/StokesColor.py:103-127,130-165``)
 are computed *once*, vectorized, and stored as arrays of static shape.

@@ -133,7 +133,7 @@ def generate_annulus_mesh(
         # (the relative 1.18·r band is ~13 cells wide at n_side=280 and
         # would produce ring↔grid couplings spanning that many rows;
         # a sub-cell gap keeps every coupling within a ±3 grid-offset
-        # window — what the VMEM CG kernels and halo strips key on).
+        # window — what the stencil decomposition and halo strips key on).
         # keep/slot sets come from the IDEAL grid so that jittered
         # ensemble members share identical boundary index sets.
         h = L / (n_side - 1)
@@ -152,9 +152,8 @@ def generate_annulus_mesh(
         # each ring node takes over the id of the closest unused grid point
         # inside the hole shell.  Every node id is then a grid id
         # (N = n_side² exactly), so every operator coupling is a bounded
-        # 2-D grid offset (|Δrow|, |Δcol| ≤ ~4 plus periodic wraps) — the
-        # property the VMEM-resident Pallas CG kernels key on — while the
-        # 9-offset stencil decomposition (ops.stencil) is preserved.
+        # 2-D grid offset (|Δrow|, |Δcol| ≤ ~4 plus periodic wraps), so
+        # the 9-offset stencil decomposition (ops.stencil) covers it.
         dummy_ids = np.nonzero(~keep)[0]
         ring_slots = _assign_ring_slots(pts_ideal[dummy_ids], ring, dummy_ids)
         coords = pts.copy()

@@ -1,22 +1,19 @@
-"""Geometric grid renumbering: make ANY mesh grid-kernel-ready.
+"""Geometric grid renumbering of ANY mesh.
 
-The VMEM-resident Pallas CG kernels (``ops/gridop.py`` +
-``solve/pallas_cg.py``) require a *grid-structured numbering*: N = ns²
-node ids laid out so that node id = row·ns + lane with (row, lane)
-tracking (x, y), making every operator coupling a small 2-D grid offset.
-Round 2 only our own ``generate_annulus_mesh(pad_hole=True)`` meshes had
-that property; imported Triangle meshes — including the reference's own
-``mesh_fine.1`` (``/root/reference/resources/mesh_fine.1.node``) — could
-not use the fastest path at all (VERDICT r2 §missing #1).
+A *grid-structured numbering* lays N = ns² node ids out so that node id =
+row·ns + lane with (row, lane) tracking (x, y), making every operator
+coupling a small 2-D grid offset.  Our own
+``generate_annulus_mesh(pad_hole=True)`` meshes have that property by
+construction; imported Triangle meshes — including the reference's own
+``mesh_fine.1`` — do not.
 
 This module assigns every node of an arbitrary mesh to a slot of an
 ns×ns raster:
 
 * **rows** (grid axis 0 ↔ x): nodes sorted by x, rank-partitioned into
   ns balanced bands — x≈0 nodes are forced to row 0 and x≈L nodes to
-  row ns−1 so the periodic-pair structure the pressure kernel keys on
-  (masters row 0, slaves row ns−1, matching lanes) holds by
-  construction.
+  row ns−1 so the periodic-pair structure (masters row 0, slaves row
+  ns−1, matching lanes) holds by construction.
 * **lanes** (grid axis 1 ↔ y): within each row, nodes sorted by y take
   the lane nearest ⌊y/H·ns⌋ under a strictly-increasing constraint
   (vectorized monotone clamp) — lanes stay geometrically aligned
@@ -32,12 +29,9 @@ ns×ns raster:
 For a quasi-uniform mesh of N nodes, an edge spans ~h in x ⇒ ~1 row
 band, and the per-band lane alignment drifts by the local density
 contrast ⇒ |Δlane| of a few: couplings concentrate on ~20–40 offsets,
-which :class:`tpufem.ops.gridop.GridOperator` turns into dense
-roll-diagonals (the tail goes to its exact one-hot remainder).
-Mesh-density contrast c costs ~√c extra offset spread — strongly graded
-meshes may exceed the decomposition's remainder budget, in which case
-``GridOperator.build`` raises and the caller falls back to
-stencil/banded storage.
+which an offset decomposition (e.g. :class:`tpufem.ops.stencil.
+StencilOperator`) turns into dense diagonals plus a small remainder.
+Mesh-density contrast c costs ~√c extra offset spread.
 """
 
 from __future__ import annotations
@@ -97,10 +91,10 @@ def gridify_points(
     The non-periodic core of :func:`gridify_mesh` — capacity-constrained
     geometric row bands + monotone geometric lanes — without the
     edge-pinning / periodic-pair machinery.  Used for dof spaces that are
-    not P1 mesh nodes: the P2 velocity dofs and the P1 pressure dofs of
-    the Taylor–Hood grid kernels (``workloads/th_sparse.py``), where the
-    quasi-uniform refined lattice makes every FEM coupling a small 2-D
-    grid offset under this numbering.  ``perm[old_id] = row·ns + lane``.
+    not P1 mesh nodes, e.g. the P2 velocity dofs and the P1 pressure
+    dofs of a Taylor–Hood discretization, where the quasi-uniform refined
+    lattice makes every FEM coupling a small 2-D grid offset under this
+    numbering.  ``perm[old_id] = row·ns + lane``.
     """
     coords = np.asarray(coords)
     n = coords.shape[0]
@@ -177,7 +171,7 @@ def gridify_mesh(
     lane = np.empty(n, dtype=np.int64)
 
     # --- rows: GEOMETRIC targets with capacity-constrained monotone
-    # assignment, edges pinned.  Pure x-rank bands (round-3 first cut)
+    # assignment, edges pinned.  Pure x-rank bands (a first cut)
     # smear the offsets on meshes whose x-columns have varying lengths
     # (the hole shortens interior columns, so fixed-size rank bands slice
     # across physical columns): instead each node targets its geometric
@@ -227,15 +221,15 @@ def gridify_mesh(
         assign_row_lanes(np.nonzero(row == r)[0])
     assign_row_lanes(np.nonzero(left)[0])
 
-    # row ns−1: periodic slaves inherit their master's lane (the pressure
-    # kernel's roll-based merge requires mj == sj — pallas_cg.py:292-304);
+    # row ns−1: periodic slaves inherit their master's lane (pairs on the
+    # same lane of opposite rows: one grid offset per periodic coupling);
     # unpaired x≈L nodes (wall corners) fill nearby free lanes
     masters, slaves = find_periodic_pairs(coords, L=L, H=H, tol=tol)
     if len(slaves) != len(set(int(s) for s in slaves)):
         raise GridifyError(
             "periodic nearest-y matching is not injective on this mesh "
-            "(two x≈0 nodes share an x≈L partner) — the grid pressure "
-            "kernel cannot represent it; use stencil/banded storage"
+            "(two x≈0 nodes share an x≈L partner) — a grid numbering "
+            "cannot represent it; use stencil/banded storage"
         )
     right_ids = np.nonzero(right)[0]
     if n_right:
@@ -285,8 +279,7 @@ def grid_numbering_ok(mesh: Mesh, max_offsets: int = 24, rest_cap: int | None = 
 
     Estimates the offset concentration from the triangle adjacency alone
     (no assembly): true iff N = ns² and the top ``max_offsets`` (dy, s)
-    offsets leave at most ``rest_cap`` couplings uncovered — the same
-    criterion :class:`~tpufem.ops.gridop.GridOperator` enforces."""
+    offsets leave at most ``rest_cap`` couplings uncovered."""
     n = mesh.n_nodes
     ns = int(round(np.sqrt(n)))
     if ns * ns != n:

@@ -15,6 +15,7 @@ import os
 import time
 from contextlib import contextmanager
 
+import jax
 import numpy as np
 
 
@@ -103,7 +104,7 @@ class PhaseTimer:
             yield
         finally:
             if sync_on is not None:
-                np.asarray(sync_on)  # device→host copy = reliable sync
+                jax.block_until_ready(sync_on)
             self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
 
     def report(self) -> str:

@@ -12,8 +12,7 @@ precomputed geometry tensors, then scattered in one ``segment_sum`` /
 Two materializations are offered:
 
 * **dense** ``(N, N)`` — ideal for the bundled meshes (N ≤ ~4k): the
-  per-step solves then ride the MXU (LU triangular solves / inverse
-  matvecs).
+  per-step solves are dense (LU triangular solves / inverse matvecs).
 * **CSR** (static shape) — the matrix-free path for large meshes and the
   sharded multi-chip solver.
 """
@@ -25,6 +24,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from tpufem.mesh.core import Mesh
+
+# f32 products at full precision (the GPU default rounds operands to TF32)
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _f(mesh: Mesh, arr):
@@ -47,7 +49,8 @@ def element_stiffness(mesh: Mesh, signed: bool = False) -> jnp.ndarray:
     """
     grads = _f(mesh, mesh.grads)  # (T,3,2), already /det (signed)
     det = _f(mesh, mesh.det)
-    gg = jnp.einsum("tid,tjd->tij", grads, grads)  # (∇φ_i·∇φ_j), carries 1/det²
+    # (∇φ_i·∇φ_j), carries 1/det²
+    gg = jnp.einsum("tid,tjd->tij", grads, grads, precision=_HI)
     scale = det * det / (2.0 * (det if signed else jnp.abs(det)))
     ke = gg * scale[:, None, None]
     return jnp.where(_f(mesh, mesh.valid)[:, None, None] != 0, ke, 0.0)
@@ -94,7 +97,9 @@ def element_convection(mesh: Mesh, u: jnp.ndarray, variant: str = "stokescolor")
         row = 0.5 * det / 3.0
     else:
         raise ValueError(f"unknown convection variant: {variant}")
-    udotg = jnp.einsum("td,tjd->tj", u_c, grads * scale[:, None, None])  # (T,3)
+    udotg = jnp.einsum(
+        "td,tjd->tj", u_c, grads * scale[:, None, None], precision=_HI
+    )  # (T,3)
     ce = row[:, None, None] * jnp.broadcast_to(
         udotg[:, None, :], (mesh.n_tris, 3, 3)
     )
@@ -109,13 +114,10 @@ def element_convection_flat(mesh: Mesh, u: jnp.ndarray,
     ``element_convection(mesh, u, variant)[t, k // 3, k % 3]``.
 
     The per-step form for the scanned NS programs: every array here is
-    1-D, because XLA tiles a rank-3 ``(T, 3, 3)`` element tensor on its
-    trailing (3, 3) dims and pads them to full (sublane, 128-lane)
-    tiles — measured 56.9× expansion (a 180 MB convection tensor
-    ballooned to a 10.00 GB HLO temp inside the 410k chunked NS step
-    and OOM'd the 16 GB HBM).  1-D arrays never pad; the (T, 3, 2)
-    ``mesh.grads`` operand is pre-sliced into six (T,) constants for
-    the same reason."""
+    1-D (the (T, 3, 2) ``mesh.grads`` operand is pre-sliced into six (T,)
+    constants), so ``StencilRefill.refill_flat`` gathers straight from
+    this layout and no rank-3 ``(T, 3, 3)`` temporary exists in the
+    step."""
     dtype = u.dtype
     grads = np.asarray(mesh.grads)
     det = jnp.asarray(mesh.det, dtype=dtype)

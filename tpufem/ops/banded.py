@@ -1,11 +1,11 @@
-"""Banded sparse operators via RCM reordering — the TPU-native SpMV.
+"""Banded sparse operators via RCM reordering — a gather-free SpMV.
 
-Unstructured gathers (CSR gather + segment-sum) run poorly on TPU vector
-units.  Reverse-Cuthill-McKee reordering compresses a P1 mesh operator to
+Reverse-Cuthill-McKee reordering compresses a P1 mesh operator to
 bandwidth ~O(√N); the matrix is then stored as (2b+1) diagonals and the
 matvec becomes pure shift-multiply-accumulate — zero gathers, fully
-VPU-vectorized (measured ~3.4× over the segment-sum SpMV at 30k nodes,
-and it avoids the TPU gather path entirely).
+vectorized, but it reads the O(bw·N) band envelope.  The fallback of
+``cg_storage="auto"`` on the GPU when the numbering does not suit the
+stencil decomposition (``ops/stencil.py``).
 
 The permutation is internal to the operator: callers stay in global node
 order (``matvec`` permutes in, computes banded, permutes out — the two

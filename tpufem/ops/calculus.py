@@ -25,6 +25,9 @@ import numpy as np
 from tpufem.mesh.core import Mesh
 from tpufem.ops.assembly import _f
 
+# f32 products at full precision (the GPU default rounds operands to TF32)
+_HI = jax.lax.Precision.HIGHEST
+
 _EPS_AREA = 1e-12
 
 
@@ -58,7 +61,7 @@ def element_gradient(mesh: Mesh, p: jnp.ndarray) -> jnp.ndarray:
     # stack in calculate_gradiant (StokesColor.py:244-248).
     grads = jnp.asarray(mesh.grads, dtype=p.dtype)  # (T,3,2)
     p_loc = p[mesh.tris]  # (T,3)
-    return jnp.einsum("ti,tid->td", p_loc, grads)
+    return jnp.einsum("ti,tid->td", p_loc, grads, precision=_HI)
 
 
 def gradient(mesh: Mesh, p: jnp.ndarray) -> jnp.ndarray:
@@ -70,8 +73,8 @@ def element_divergence(mesh: Mesh, u: jnp.ndarray) -> jnp.ndarray:
     """(T,) element-constant divergence of nodal velocity u (N, 2)."""
     grads = jnp.asarray(mesh.grads, dtype=u.dtype)
     u_loc = u[mesh.tris]  # (T,3,2)
-    dudx = jnp.einsum("ti,ti->t", u_loc[..., 0], grads[..., 0])
-    dvdy = jnp.einsum("ti,ti->t", u_loc[..., 1], grads[..., 1])
+    dudx = jnp.einsum("ti,ti->t", u_loc[..., 0], grads[..., 0], precision=_HI)
+    dvdy = jnp.einsum("ti,ti->t", u_loc[..., 1], grads[..., 1], precision=_HI)
     return dudx + dvdy
 
 
@@ -87,8 +90,8 @@ def vorticity(mesh: Mesh, u: jnp.ndarray) -> jnp.ndarray:
     """
     grads = jnp.asarray(mesh.grads, dtype=u.dtype)
     u_loc = u[mesh.tris]
-    duy_dx = jnp.einsum("ti,ti->t", u_loc[..., 1], grads[..., 0])
-    dux_dy = jnp.einsum("ti,ti->t", u_loc[..., 0], grads[..., 1])
+    duy_dx = jnp.einsum("ti,ti->t", u_loc[..., 1], grads[..., 0], precision=_HI)
+    dux_dy = jnp.einsum("ti,ti->t", u_loc[..., 0], grads[..., 1], precision=_HI)
     return _lump(mesh, duy_dx - dux_dy)
 
 
@@ -96,9 +99,9 @@ def divergence_matrices(mesh: Mesh):
     """(Dx, Dy) host NumPy (N, N) matrices with div(u) = Dx uₓ + Dy u_y.
 
     The lumped divergence is linear in u, so it can be materialized once
-    as two dense operators; on TPU the per-step evaluation then becomes
-    MXU matvecs instead of gather/segment-sum pipelines (the fast path
-    for the dense regime, N ≲ 4k).  Numerically identical (up to
+    as two dense operators; the per-step evaluation then becomes dense
+    matvecs instead of gather/segment-sum pipelines (the dense
+    regime).  Numerically identical (up to
     summation order) to :func:`divergence`.
     """
     n, t = mesh.n_nodes, mesh.n_tris
@@ -122,10 +125,10 @@ def divergence_csr_operators(mesh: Mesh):
     """(Dx, Dy) as static CSR operators — the sparse (large-mesh) form of
     :func:`divergence_matrices`, sharing the stiffness sparsity pattern.
 
-    The gather/segment-sum pipelines of :func:`divergence`/:func:`gradient`
-    cost ~17–26 ms per call at 160k nodes on TPU; as assembled sparse
-    operators (stencil storage on pad_hole meshes) the same maps run in
-    ~0.5 ms — div(u) = Dx uₓ + Dy u_y and ∇p = (Dx p, Dy p)."""
+    The same maps as :func:`divergence`/:func:`gradient` without their
+    per-call gather/segment-sum pipelines: as assembled sparse operators
+    (stencil storage on pad_hole meshes) div(u) = Dx uₓ + Dy u_y and
+    ∇p = (Dx p, Dy p)."""
     from tpufem.ops import assembly
 
     t, n = mesh.n_tris, mesh.n_nodes
@@ -195,8 +198,10 @@ def convection_apply(
     else:
         raise ValueError(f"unknown convection variant: {variant}")
     u_c = u[mesh.tris].mean(axis=1)  # (T,2)
-    gradc = jnp.einsum("ti,tid->td", c[mesh.tris], grads * scale[:, None, None])
-    val = valid * row * jnp.einsum("td,td->t", u_c, gradc)  # (T,)
+    gradc = jnp.einsum(
+        "ti,tid->td", c[mesh.tris], grads * scale[:, None, None], precision=_HI
+    )
+    val = valid * row * jnp.einsum("td,td->t", u_c, gradc, precision=_HI)  # (T,)
     contrib = jnp.broadcast_to(val[:, None], (mesh.n_tris, 3)).reshape(-1)
     return jax.ops.segment_sum(
         contrib, jnp.asarray(mesh.tris).reshape(-1), num_segments=mesh.n_nodes
@@ -212,7 +217,7 @@ def consistent_divergence_rhs(mesh: Mesh, u: jnp.ndarray) -> jnp.ndarray:
     area = _f(mesh, mesh.area)
     valid = _f(mesh, mesh.valid)
     u_avg = u[mesh.tris].mean(axis=1)  # (T,2)
-    contrib = -jnp.einsum("td,tid->ti", u_avg, grads) * area[:, None]
+    contrib = -jnp.einsum("td,tid->ti", u_avg, grads, precision=_HI) * area[:, None]
     contrib = jnp.where(valid[:, None] != 0, contrib, 0.0)
     return jax.ops.segment_sum(
         contrib.reshape(-1), jnp.asarray(mesh.tris).reshape(-1),

@@ -1,10 +1,11 @@
 """Static-shape CSR operators and their segment-sum matvec.
 
-The matrix-free path for meshes too large for dense MXU solves, and the
-building block for the sharded multi-chip CG.  Shapes are static: the
+The matrix-free path for meshes too large for dense solves, and the
+building block for the sharded multi-device CG.  Shapes are static: the
 sparsity pattern is computed once on the host, so the jitted matvec is a
-gather → multiply → segment-sum with fixed sizes.  On TPU prefer
-``ops.banded.BandedOperator`` (RCM diagonals, gather-free) — CSR is the
+gather → multiply → segment-sum with fixed sizes.  On the GPU the
+workloads prefer the gather-free ``ops.stencil.StencilOperator`` /
+``ops.banded.BandedOperator`` (``tpufem.platform``) — CSR is the
 CPU-friendly and sharding-friendly (row-slab) form.
 """
 
@@ -61,8 +62,8 @@ class CSROperator:
 
 
 def csr_matvec(op: CSROperator, x: jnp.ndarray) -> jnp.ndarray:
-    """y = A @ x via gather + segment_sum (row ids are sorted ⇒ the
-    segment reduction lowers to an efficient scan on TPU)."""
+    """y = A @ x via gather + segment_sum (row ids are sorted, which the
+    segment reduction is told)."""
     gathered = op.data * x[op.indices]
     return jax.ops.segment_sum(
         gathered,
@@ -112,14 +113,3 @@ def csr_from_coo(rows, cols, data, shape,
         shape=tuple(shape),
     )
 
-
-def permute_csr(op: CSROperator, row_perm, col_perm, shape) -> CSROperator:
-    """Renumber rows/cols of a CSROperator (host-side rebuild).
-
-    ``row_perm[old_row] = new_row`` (likewise cols); ``shape`` may be
-    larger than the old one — unmapped new rows become empty (the inert
-    dummy slots of a :func:`tpufem.mesh.gridify.gridify_points` raster).
-    """
-    rows = np.asarray(row_perm, dtype=np.int64)[np.asarray(op.row_ids)]
-    cols = np.asarray(col_perm, dtype=np.int64)[np.asarray(op.indices)]
-    return csr_from_coo(rows, cols, np.asarray(op.data), shape)

@@ -1,12 +1,11 @@
-"""Stencil-offset sparse operators — the O(nnz) TPU SpMV.
+"""Stencil-offset sparse operators — the O(nnz) gather-free SpMV.
 
 Banded (RCM) storage reads the whole O(2·bw·N) band envelope per matvec
 even though P1 mesh operators have only ~7 nonzeros per row (band density
-0.4–1.6% at 19k–115k nodes — measured round 2).  TPU gathers cost ~11 ns
-per element, so CSR/ELL forms are no better.  What the TPU *is* fast at
-is static-offset shift-multiply-accumulate (constant-offset
-``dynamic_slice`` + FMA, fully fused by XLA: measured 23× faster than the
-banded sweep at 57k nodes).
+0.4–1.6% at 19k–115k nodes).  CSR reads O(nnz) but through a gather and a
+segment-sum.  Static-offset shift-multiply-accumulate (constant-offset
+``dynamic_slice`` + FMA) reads O(nnz) contiguously and XLA fuses it into
+one elementwise kernel.
 
 This operator therefore decomposes A = Σ_k diag(d_k)·Shift(o_k) + R:
 
@@ -163,7 +162,7 @@ class StencilRefill:
     order: np.ndarray  # (E,) host: elem.reshape(-1) gather order
     n_flat: int  # s·N + len(rest)
     order_k: np.ndarray | None = None  # (E,) host: gather order into the
-    # K-MAJOR (9·T,) flat layout (see GridRefill.order_k)
+    # K-MAJOR (9·T,) flat layout of ``assembly.element_convection_flat``
 
     @classmethod
     def build(cls, mesh, dtype=jnp.float32, max_offsets: int = 16,
@@ -213,9 +212,7 @@ class StencilRefill:
     def refill_flat(self, flat_k: jnp.ndarray) -> StencilOperator:
         """(9·T,) K-MAJOR element values (``k·T + t`` layout, see
         ``assembly.element_convection_flat``) → StencilOperator without
-        ever materializing a rank-3 (T, 3, 3) tensor on device (its
-        trailing dims tile-pad ~57× and OOM HBM inside scanned steps
-        at ≥410k)."""
+        ever materializing a rank-3 (T, 3, 3) tensor on device."""
         return self._from_gathered(
             flat_k[jnp.asarray(self.order_k, dtype=jnp.int32)]
         )

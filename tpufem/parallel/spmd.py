@@ -1,7 +1,7 @@
 """Multi-chip SPMD execution: ensemble ("data") × operator ("space") sharding.
 
 The reference is strictly single-threaded (SURVEY.md §2, parallelism note);
-the TPU-native scaling axes for this workload are:
+the scaling axes for this workload are:
 
 * **data** — an *ensemble* of independent simulations (the reference's
   actual scientific campaign: sweeping squirmer gaits B1/B2 across runs,
@@ -34,6 +34,9 @@ from tpufem.mesh.core import Mesh
 from tpufem.ops import assembly
 from tpufem.solve import DenseInverse
 from tpufem.workloads import stokes
+
+# f32 products at full precision (the GPU default rounds operands to TF32)
+_HI = jax.lax.Precision.HIGHEST
 
 
 def build_device_mesh(n_devices: int | None = None, data: int | None = None):
@@ -179,8 +182,7 @@ class MultiMeshEnsemble:
     axis and row-sharded over "space"; the batch is sharded over "data".
     Per-sim transport ("dye"/"tracers") rides stacked locator tables
     padded to a common candidate width
-    (:class:`tpufem.transport.BatchedGridLocator`).
-    TODO.md round-1: "per-sim meshes"."""
+    (:class:`tpufem.transport.BatchedGridLocator`)."""
 
     meshes: tuple
     device_mesh: DeviceMesh
@@ -305,7 +307,7 @@ def make_multimesh_step(ensemble: MultiMeshEnsemble, _jit: bool = True):
 
     def mv(rows_, x):
         """(Bl, Nl, N) per-sim row blocks @ (Bl, N, ...) → (Bl, N, ...)."""
-        part = jnp.einsum("brn,bn...->br...", rows_, x)
+        part = jnp.einsum("brn,bn...->br...", rows_, x, precision=_HI)
         return jax.lax.all_gather(part, "space", axis=1, tiled=True)[:, :n]
 
     masters, slaves = boundary.masters, boundary.slaves
@@ -411,7 +413,7 @@ def _shard_elements(mesh: Mesh, n_shards: int):
 def _div_local(tris, grads, area, valid, u, n_nodes):
     """Local partial sums of the lumped divergence (no normalization)."""
     u_loc = u[:, tris]  # (B, Tl, 3, 2)
-    div_e = jnp.einsum("btic,tic->bt", u_loc, grads)
+    div_e = jnp.einsum("btic,tic->bt", u_loc, grads, precision=_HI)
     w = jnp.where(valid, area / 3.0, 0.0)
     seg = tris.reshape(-1)
     contrib = jnp.broadcast_to((div_e * w)[..., None], div_e.shape + (3,)).reshape(
@@ -426,7 +428,7 @@ def _div_local(tris, grads, area, valid, u, n_nodes):
 
 def _grad_local(tris, grads, area, valid, p, n_nodes):
     p_loc = p[:, tris]  # (B, Tl, 3)
-    g_e = jnp.einsum("bti,tid->btd", p_loc, grads)  # (B, Tl, 2)
+    g_e = jnp.einsum("bti,tid->btd", p_loc, grads, precision=_HI)  # (B, Tl, 2)
     w = jnp.where(valid, area / 3.0, 0.0)
     seg = tris.reshape(-1)
     contrib = (g_e * w[None, :, None])[:, :, None, :] * jnp.ones((1, 1, 3, 1))
@@ -486,7 +488,7 @@ def make_sharded_step(ensemble: ShardedEnsemble, _jit: bool = True):
     def matvec(inv_rows, x):
         """Row-sharded inverse application: (Nl, N) @ (B, N, ...) →
         all_gather → (B, N_pad, ...)[:, :n]."""
-        part = jnp.einsum("rn,bn...->br...", inv_rows, x)
+        part = jnp.einsum("rn,bn...->br...", inv_rows, x, precision=_HI)
         full = jax.lax.all_gather(part, "space", axis=1, tiled=True)
         return full[:, :n]
 

@@ -33,14 +33,12 @@ from tpufem.workloads import stokes
 def make_sharded_matfree_step(device_mesh: DeviceMesh, problem, axis: str = "space"):
     """Build a jitted u → (u', metrics) step sharded over ``axis``.
 
-    ``problem`` must be built with solver="cg" and banded, stencil, or
-    grid storage: banded halos exchange O(bandwidth) strips
+    ``problem`` must be built with solver="cg" and banded or stencil
+    storage: banded halos exchange O(bandwidth) strips
     (parallel/halo.py); stencil halos exchange O(max-offset) strips plus
     a tiny remainder gather and keep the distributed SpMV O(nnz)
-    (parallel/halo_stencil.py); grid storage shards the whole-solve
-    kernels' offset decomposition as row strips with ppermute halos
-    (parallel/grid_sharded.py) — the multi-chip form of the VMEM
-    grid-kernel projection step (VERDICT r3 next #6).
+    (parallel/halo_stencil.py).  The halo exchanges are ``ppermute``s,
+    which XLA lowers to NCCL on the GPU.
     """
     from tpufem.ops.banded import BandedOperator
     from tpufem.ops.stencil import StencilOperator
@@ -48,26 +46,19 @@ def make_sharded_matfree_step(device_mesh: DeviceMesh, problem, axis: str = "spa
         make_stencil_halo_pressure_solver,
         make_stencil_halo_viscous_solver,
     )
-    from tpufem.solve.pallas_cg import ViscousGridCG
 
     cfg = problem.config
     mesh = problem.mesh
     vs = problem.visc_solver
     ps = problem.pressure_solver
-    assert isinstance(vs, ViscousGridCG) or isinstance(
-        vs.K, (BandedOperator, StencilOperator)
-    ), "requires cg_storage='banded', 'stencil', or 'grid[_interpret]'"
+    assert isinstance(vs.K, (BandedOperator, StencilOperator)), (
+        "requires cg_storage='banded' or 'stencil'"
+    )
     s = device_mesh.shape[axis]
     dt = cfg.dt
     n = mesh.n_nodes
 
-    if isinstance(vs, ViscousGridCG):
-        from tpufem.parallel.grid_sharded import make_sharded_grid_solvers
-
-        visc_solve, press_solve = make_sharded_grid_solvers(
-            device_mesh, problem, axis=axis
-        )
-    elif isinstance(vs.K, StencilOperator):
+    if isinstance(vs.K, StencilOperator):
         visc_solve = make_stencil_halo_viscous_solver(
             device_mesh, vs.K, np.asarray(vs.interior_mask), vs.dt_nu,
             iters=vs.iters, axis=axis,

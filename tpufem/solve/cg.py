@@ -22,6 +22,11 @@ import jax
 import jax.numpy as jnp
 
 
+def _vdot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """Inner product at full f32 precision (no TF32 rounding on the GPU)."""
+    return jnp.vdot(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _deflate(x: jnp.ndarray, weights: jnp.ndarray | None) -> jnp.ndarray:
     """Project out the nullspace component along ``weights`` (default: the
     constant vector).  This is an orthogonal projection x − (v·x/v·v)v —
@@ -29,7 +34,7 @@ def _deflate(x: jnp.ndarray, weights: jnp.ndarray | None) -> jnp.ndarray:
     support of v (e.g. merged-out slave dofs)."""
     if weights is None:
         return x - jnp.mean(x)
-    return x - (jnp.vdot(weights, x) / jnp.vdot(weights, weights)) * weights
+    return x - (_vdot(weights, x) / _vdot(weights, weights)) * weights
 
 
 def cg(
@@ -55,24 +60,24 @@ def cg(
     r0 = project(b - matvec(x0))
     z0 = project(M(r0))
     p0 = z0
-    rz0 = jnp.vdot(r0, z0)
+    rz0 = _vdot(r0, z0)
     bnorm = jnp.linalg.norm(b)
     atol2 = (tol * jnp.maximum(bnorm, 1e-30)) ** 2
 
     def cond(state):
         x, r, p, rz, k = state
-        return jnp.logical_and(k < maxiter, jnp.vdot(r, r) > atol2)
+        return jnp.logical_and(k < maxiter, _vdot(r, r) > atol2)
 
     def body(state):
         x, r, p, rz, k = state
         Ap = project(matvec(p))
-        alpha = rz / jnp.vdot(p, Ap)
+        alpha = rz / _vdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         # deflate the preconditioned direction, matching cg_fixed — roundoff
         # along the nullspace otherwise drives p·Ap → 0 and alpha explodes
         z = project(M(r))
-        rz_new = jnp.vdot(r, z)
+        rz_new = _vdot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         return (project(x) if deflate else x, r, p, rz_new, k + 1)
@@ -102,19 +107,19 @@ def cg_fixed(
     b = project(b)
     r0 = project(b - matvec(x0))
     z0 = project(M(r0))
-    rz0 = jnp.vdot(r0, z0)
+    rz0 = _vdot(r0, z0)
 
     def body(state, _):
         x, r, p, rz = state
         Ap = project(matvec(p))
-        denom = jnp.vdot(p, Ap)
+        denom = _vdot(p, Ap)
         alpha = jnp.where(denom != 0, rz / denom, 0.0)
         x = x + alpha * p
         r = r - alpha * Ap
         # the preconditioned direction must be deflated too — otherwise
         # roundoff along the nullspace makes p·Ap → 0 and alpha explodes
         z = project(M(r))
-        rz_new = jnp.vdot(r, z)
+        rz_new = _vdot(r, z)
         beta = jnp.where(rz != 0, rz_new / rz, 0.0)
         p = z + beta * p
         return (x, r, p, rz_new), None
@@ -212,27 +217,27 @@ def bicgstab_fixed(
 
     def fin(v):
         # finite-or-zero: ratios at BiCGStab breakdown (ρ or ω denormal —
-        # which TPU flushes to zero in f32 — or overflowing) poison every
+        # which accelerators may flush to zero in f32 — or overflowing) poison every
         # later iterate with inf/NaN; a zeroed step degrades to "no
         # progress this iteration" instead.  Bit-exact when healthy.
         return jnp.where(jnp.isfinite(v), v, jnp.zeros_like(v))
 
     def body(state, _):
         x, r, p, v, rho, alpha, omega = state
-        rho_new = jnp.vdot(rhat, r)
+        rho_new = _vdot(rhat, r)
         beta = fin(jnp.where(
             (rho != 0) & (omega != 0), (rho_new / rho) * (alpha / omega), 0.0
         ))
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = matvec(phat)
-        denom = jnp.vdot(rhat, v)
+        denom = _vdot(rhat, v)
         alpha = fin(jnp.where(denom != 0, rho_new / denom, 0.0))
         s = r - alpha * v
         shat = M(s)
         t = matvec(shat)
-        tt = jnp.vdot(t, t)
-        omega = fin(jnp.where(tt != 0, jnp.vdot(t, s) / tt, 0.0))
+        tt = _vdot(t, t)
+        omega = fin(jnp.where(tt != 0, _vdot(t, s) / tt, 0.0))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         return (x, r, p, v, rho_new, alpha, omega), None
@@ -246,7 +251,7 @@ def bicgstab_fixed(
         def cond(st):
             state, k = st
             return jnp.logical_and(
-                k < iters, jnp.vdot(state[1], state[1]).real > atol2
+                k < iters, _vdot(state[1], state[1]).real > atol2
             )
 
         def wbody(st):

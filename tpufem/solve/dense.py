@@ -6,23 +6,25 @@ matrix every timestep — 4× per Stokes step, 6000 steps
 All system matrices are constant across a run, so we factor **once** at
 setup and each step costs only O(N²).
 
-TPU constraint: XLA's TPU backend implements LuDecomposition only for
-f32/c64, so f64 factorization cannot run on-chip.  The factorization is
-therefore done on the **host** (LAPACK, full f64 accuracy) at setup, and
-only its *application* ships to the device:
+The factorization is done once on the **host** (LAPACK, full f64
+accuracy) at setup, and only its *application* ships to the device:
 
 * :class:`DenseInverse` — host ``np.linalg.inv`` once; the per-step solve
-  is a single (N,N)@(N,) matvec that maps straight onto the MXU and fuses
-  into the surrounding step program.  This is the TPU path.
+  is a single (N,N)@(N,) matvec that fuses into the surrounding step
+  program.  The fast path of the dense regime, in f32 or f64.
 * :class:`DenseLU` — host LAPACK LU once, device triangular solves per
-  step (numerically identical to the reference's per-step solve).  Used
-  on the CPU backend for bit-tight parity tests.
+  step (numerically identical to the reference's per-step solve).  The
+  bit-tight parity path.
+
+f32 products run at ``HIGHEST`` precision: the GPU's default would round
+the operands to TF32 (about three decimal digits).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsla
 import numpy as np
@@ -47,7 +49,7 @@ class DenseLU:
 
 @dataclasses.dataclass(frozen=True)
 class DenseInverse:
-    """Host-computed explicit inverse; ``solve`` is one MXU matvec."""
+    """Host-computed explicit inverse; ``solve`` is one matvec."""
 
     inv: jnp.ndarray
 
@@ -56,13 +58,13 @@ class DenseInverse:
         return cls(inv=jnp.asarray(np.linalg.inv(np.asarray(A))))
 
     def solve(self, b: jnp.ndarray) -> jnp.ndarray:
-        return self.inv @ b
+        return jnp.matmul(self.inv, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def make_dense_solver(A, method: str = "lu"):
     """Factor A once; returns an object with a jittable ``.solve(b)``.
 
-    ``lu`` — exact (reference-parity) path; ``inverse`` — fastest TPU path.
+    ``lu`` — exact (reference-parity) path; ``inverse`` — fastest path.
     """
     if method == "lu":
         return DenseLU.factor(A)

@@ -97,8 +97,8 @@ def _solve_columns(matvec, b, x0=None, tol: float = 0.0, **kw):
 @dataclasses.dataclass(frozen=True)
 class ViscousCG:
     K: object  # any operator exposing .matvec(x) and .diag(): CSROperator
-    # (gather/segment-sum) or ops.banded.BandedOperator (RCM shift-multiply,
-    # the TPU-fast storage)
+    # (gather/segment-sum), ops.banded.BandedOperator (RCM shift-multiply)
+    # or ops.stencil.StencilOperator (offset shift-multiply)
     interior_mask: jnp.ndarray  # (N,) 1.0 interior / 0.0 dirichlet
     dt_nu: float
     iters: int

@@ -7,7 +7,7 @@ solvers (κ ≳ 1e10 — SURVEY.md §7.3).  The *merged* operator implements the
 constraint exactly by DOF-merging (slave pressure dofs share their
 master's column), regularizes the constant nullspace, and bakes the whole
 solve — M_L scaling, merge, deflation, inverse, scatter-back — into ONE
-precomputed (N, N) matrix applied per step as a single MXU matvec:
+precomputed (N, N) matrix applied per step as a single matvec:
 
     p = A_eff @ b,   A_eff = M_g Π (K_act + α 𝟙𝟙ᵀ/n)⁻¹ Π M_gᵀ diag(M_L)
 

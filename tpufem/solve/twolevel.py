@@ -27,9 +27,9 @@ Per application (device-side, inside the jitted CG):
     z  = z₂ + ω D⁻¹ (r − K z₂)        post-smooth
 
 which is symmetric positive definite on the active subspace (identical
-pre/post smoothing), so CG theory applies.  TPU mapping: the restriction
-is a single sorted ``segment_sum``, the interpolation a single row
-gather, and the coarse solve one dense (N_c, N_c) MXU matvec — no
+pre/post smoothing), so CG theory applies.  Device mapping: the
+restriction is a single sorted ``segment_sum``, the interpolation a single
+row gather, and the coarse solve one dense (N_c, N_c) matvec — no
 sequential sweeps, no dynamic shapes.
 """
 
@@ -155,9 +155,14 @@ def twolevel_preconditioner(matvec, inv_diag, tl: TwoLevel, active_mask=None):
         rc = jax.ops.segment_sum(
             r[tl.order], tl.agg_sorted, num_segments=nc, indices_are_sorted=True
         )
-        # matvec in the coarse storage dtype (bf16 path), accumulate back
-        # in the field dtype
-        z = (tl.ac_inv @ rc.astype(tl.ac_inv.dtype)).astype(r.dtype)[tl.agg]
+        # matvec in the coarse storage dtype, accumulate back in the field
+        # dtype.  The bf16 coarse inverse (coarse_dtype) is the one product
+        # on the step path deliberately left at reduced precision; every
+        # other coarse matvec runs at HIGHEST (no TF32 rounding on the GPU)
+        prec = (None if tl.ac_inv.dtype == jnp.bfloat16
+                else jax.lax.Precision.HIGHEST)
+        z = jnp.matmul(tl.ac_inv, rc.astype(tl.ac_inv.dtype), precision=prec)
+        z = z.astype(r.dtype)[tl.agg]
         return z if active_mask is None else z * active_mask
 
     def M(r):

@@ -121,7 +121,7 @@ def make_step(problem: ADProblem):
 
     def step(f, _):
         f = f.at[idx].set(vals)  # per-step hard sources (mega_poisson:318-324)
-        b = problem.mass @ f
+        b = jnp.matmul(problem.mass, f, precision=jax.lax.Precision.HIGHEST)
         b = b.at[dirichlet].set(bval)
         f = problem.solver.solve(b)
         return f, jnp.max(f)

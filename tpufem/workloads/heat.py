@@ -8,7 +8,7 @@ Reference quirks preserved exactly (SURVEY.md Appendix B):
     (u[slave]=u[master]; walls=1, inner=0) is what actually enforces BCs.
   * The RHS source is deliberately zeroed: rhs = u + dt·b·0 (heatEq.py:322).
 
-TPU-first structure: the system is LU-factored once; the whole run is one
+Structure: the system is LU-factored once; the whole run is one
 ``lax.scan`` whose body is two triangular solves + two fused scatters.
 The reference instead calls O(N³) ``np.linalg.solve`` on the same matrix
 600 times (heatEq.py:323).
@@ -47,7 +47,7 @@ class HeatConfig:
     # reference quirks included), warm-started from uⁿ; the only path at
     # ≥100k nodes (reference meshes cap at 1067, code/heatEq.py:320-333)
     precision: str = "f64"  # "f32": host-factored inverse applied as f32
-    # MXU matvecs (fast TPU mode, like StokesConfig.precision)
+    # matvecs (like StokesConfig.precision)
     cg_iters: int = 100
     cg_tol: float = 1e-10
 

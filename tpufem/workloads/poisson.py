@@ -48,9 +48,8 @@ class PoissonConfig:
     cg_tol: float = 1e-10
     cg_precond: str = "twolevel"  # | "jacobi"
     cg_coarse_nodes: int = 2048
-    precision: str = "f64"  # "f32": cast the surgery operator + rhs for
-    # the fast TPU mode (v5e f64 is emulated ~100× slower); the dense
-    # parity paths stay f64
+    precision: str = "f64"  # "f32": cast the surgery operator + rhs (half
+    # the bytes per matvec); the dense parity paths stay f64
 
 
 def build_system(mesh: Mesh, config: PoissonConfig = PoissonConfig()):

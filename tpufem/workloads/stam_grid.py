@@ -9,7 +9,7 @@ bilinear back-trace interpolation (``:97-122``), and the quirky boundary
 treatment of ``set_boundaries`` (``:30-51``): sign-flipped walls per
 component, zero-gradient outflow on the right wall, averaged corners.
 
-This maps perfectly onto the TPU: the whole step is dense (G, G) array
+This maps directly onto an accelerator: the whole step is dense (G, G) array
 arithmetic, jitted as one program with ``lax.scan`` over frames.
 """
 
@@ -37,7 +37,7 @@ class StamConfig:
     obstacle_squirm_amplitude: float = 2.0
     obstacle_squirm_speed: float = 0.1
     solver_iters: int = 20
-    precision: str = "f32"  # the grid solver is f32-native on TPU
+    precision: str = "f32"  # device dtype of the grid solver
 
 
 def set_boundaries(b: int, x: jnp.ndarray) -> jnp.ndarray:
